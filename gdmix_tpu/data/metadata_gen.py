@@ -8,7 +8,7 @@ columns and simple numeric arrays get shape []; `<bag>_indices`/`<bag>_values`
 pairs of a sparse tensor are kept under the root name for tfrecord
 (`isSparseColumnComponent`, :262-286); complex columns are an error. Where the
 reference inspects the Spark DataFrame schema, this job sniffs the first
-records of the dataset itself (there is no JVM schema object on a TPU host).
+records of the dataset itself (there is no JVM schema object on a device host).
 """
 from __future__ import annotations
 

@@ -81,7 +81,7 @@ def run_offset_updater(data_dir: str,
     join a score dir into a dataset on uid, write the dataset back with
     `offset = predictionScore − perCoordinateScore(optional)`, and emit the
     metadata augmented with the offset column (the reference infers schema
-    from the DataFrame; the TPU build needs the declared metadata to read
+    from the DataFrame; this build needs the declared metadata to read
     TFRecords, hence the explicit metadata_file in/out)."""
     from gdmix_tpu.io.input_pipeline import load_per_record, write_per_record
     from gdmix_tpu.io.metadata import DatasetMetadata

@@ -4,7 +4,7 @@ The reference runs on a *shared* store (HDFS) and reaches it transparently
 through tf.io.gfile — batched avro writes go through a local file and are
 copied up (/root/reference/gdmix-trainer/src/gdmix/util/io_utils.py:299-334),
 and globbing lists the parent directory once instead of issuing one namenode
-RPC per candidate (io_utils.py:378-392). A TPU-pod production run needs the
+RPC per candidate (io_utils.py:378-392). A multi-host production run needs the
 same transparency for GCS/HDFS: this module is the single indirection every
 reader/writer, the multi-host model exchange, and the input sharding go
 through, so a remote scheme plugs in without touching call sites.
@@ -293,7 +293,7 @@ class DirFS(FileSystem):
     see one namespace — the piece MemFS (per-process dict) cannot provide —
     making the multi-host model-exchange/score-write contract of the
     reference's shared store (/root/reference/README.md:22) testable with
-    real processes (VERDICT r4 task 3)."""
+    real processes."""
 
     def __init__(self, root: str):
         self._root = os.path.abspath(root)

@@ -6,7 +6,7 @@ sparse bags as name_indices/name_values pairs), `read_per_entity_grouped` ↔
 per_entity_grouped_input_fn (SequenceExample: context = entity id + per-record
 scalars, sequence = ragged sparse features).
 
-Because the TPU trainer is full-batch, the pipeline materializes whole columns and
+Because the device trainer is full-batch, the pipeline materializes whole columns and
 pads the sparse bag to [N, K] COO (K = max nnz, rounded up for lane alignment)
 instead of streaming micro-batches. Padding entries carry value 0.0 and are inert
 in every downstream op (see ops/logistic.py).

@@ -3,7 +3,7 @@
 The reference keeps per-entity models as one python object per entity
 (`TrainingResult`, /root/reference/gdmix-trainer/src/gdmix/models/custom/scipy/
 job_consumers.py:18) inside a dict — fine at its process-pool throughput, but
-at this framework's solve rates (>100k models/sec/chip) the per-entity object
+at batched device-solve rates the per-entity object
 creation, dict churn, and per-model numpy slicing around the solver become the
 wall clock. ModelTable stores ALL models of a partition columnar:
 

@@ -92,7 +92,7 @@ class _OwnedGzipWriter(gzip.GzipFile):
     body or the trailer flush raises. Here the raw object is closed (and the
     write committed) only on the success path; on any failure the partial
     target is discarded instead — nothing lands, matching atomic_output
-    elsewhere (ADVICE r4)."""
+    elsewhere."""
 
     def __init__(self, path: str, fileobj):
         super().__init__(fileobj=fileobj, mode="wb")

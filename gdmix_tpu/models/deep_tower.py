@@ -3,7 +3,7 @@
 The reference delegates deep fixed effects to the external DeText package
 (/root/reference/gdmix-trainer/src/gdmix/models/detext/fixed_effect_detext_model.py,
 arch per detext-movieLens.yaml: text CNN over doc_query + wide sparse features).
-This is a TPU-native re-design with the same role in the pipeline: a
+This is a JAX re-design with the same role in the pipeline: a
 fixed-effect coordinate that consumes the DeText data layout (doc_query string +
 wide_ftrs_sp bag + uid/weight/label) and emits the standard score interface
 (predictionScore / predictionScorePerCoordinate avro) for downstream random

@@ -2,7 +2,7 @@
 //
 // The reference relies on TensorFlow's C++ tf.data kernels for record decode
 // (SURVEY.md §2 native-surface list); this is the equivalent native component
-// for the TPU build's host-side input path: one pass over a TFRecord buffer,
+// for this build's host-side input path: one pass over a TFRecord buffer,
 // protobuf wire-format Example parsing (the narrow schema the framework uses:
 // scalar int64/float dense columns + one sparse indices/values feature bag),
 // filled straight into caller-provided numpy buffers via a ctypes C API.
@@ -325,7 +325,7 @@ void gdx_free(void* handle) { delete static_cast<Handle*>(handle); }
 // SequenceExample (grouped per-entity) decoder.
 //
 // The reference decodes grouped datasets with TF's C++ parse_sequence_example
-// kernel (input_data_pipeline.py:223-332); this is the TPU build's native
+// kernel (input_data_pipeline.py:223-332); this is this build's native
 // equivalent for the random-effect input path. One record = one entity:
 //   SequenceExample = { 1: context (Features), 2: feature_lists }
 //   FeatureLists    = { 1: repeated MapEntry { 1: key, 2: FeatureList } }

@@ -8,7 +8,7 @@ fixed_effect_lr_lbfgs_model.py:635-643) and the per-entity random-effect solves
 223-231). Here the whole optimization loop lives on device:
 
   * the objective is a pure JAX function (for the fixed effect it closes over a
-    psum along the data mesh axis, so every chip steps in lockstep — the TPU
+    psum along the data mesh axis, so every chip steps in lockstep — the SPMD
     equivalent of the reference's "identical scipy runs on every worker")
   * `vmap(lambda p: lbfgs(...))` yields thousands of independent solves per chip
     (the random-effect batched solver); converged lanes are frozen via masking so
@@ -21,6 +21,10 @@ interpolation and bisection safeguard, Nocedal & Wright alg. 3.5/3.6).
 Stopping mirrors fmin_l_bfgs_b: ‖g‖∞ ≤ pgtol, or
 (f_k − f_{k+1}) ≤ ftol·max(|f_k|,|f_{k+1}|,1) where ftol = factr·eps — the reference
 passes factr = lbfgs_tolerance/eps so ftol equals `lbfgs_tolerance` directly.
+
+Every inner product pins precision=HIGHEST: the curvature pairs and the
+line-search slopes must stay float32-accurate on backends whose default
+float32 product mode is reduced (TF32 on NVIDIA tensor cores).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import jax.numpy as jnp
 
 _C1 = 1e-4   # sufficient-decrease (Armijo)
 _C2 = 0.9    # curvature
+_vdot = partial(jnp.vdot, precision=jax.lax.Precision.HIGHEST)
 
 
 class LBFGSResult(NamedTuple):
@@ -72,7 +77,7 @@ def _strong_wolfe(fun, x, f0, g0, d, gd0, max_steps: int, dtype):
 
     def phi(alpha):
         f, g = fun(x + alpha * d)
-        return f, g, jnp.vdot(g, d).real.astype(dtype)
+        return f, g, _vdot(g, d).real.astype(dtype)
 
     init = _LSState(
         done=jnp.asarray(False),
@@ -199,7 +204,7 @@ def _two_loop(g, S, Y, rho, gamma):
     def first(i, carry):
         q, alphas = carry
         idx = m - 1 - i  # newest → oldest
-        alpha = rho[idx] * jnp.vdot(S[idx], q)
+        alpha = rho[idx] * _vdot(S[idx], q)
         q = q - alpha * Y[idx]
         return q, alphas.at[idx].set(alpha)
 
@@ -207,7 +212,7 @@ def _two_loop(g, S, Y, rho, gamma):
     r = gamma * q
 
     def second(i, r):
-        beta = rho[i] * jnp.vdot(Y[i], r)
+        beta = rho[i] * _vdot(Y[i], r)
         return r + S[i] * (alphas[i] - beta)
 
     return jax.lax.fori_loop(0, m, second, r)
@@ -247,11 +252,11 @@ def lbfgs(fun: Callable[[jnp.ndarray], Tuple[jnp.ndarray, jnp.ndarray]],
 
     def body(s: _State):
         direction = -_two_loop(s.g, s.S, s.Y, s.rho, s.gamma)
-        gd = jnp.vdot(s.g, direction)
+        gd = _vdot(s.g, direction)
         # If not a descent direction (numerical breakdown), restart with -g.
         bad = gd >= 0
         direction = jnp.where(bad, -s.g, direction)
-        gd = jnp.where(bad, -jnp.vdot(s.g, s.g), gd)
+        gd = jnp.where(bad, -_vdot(s.g, s.g), gd)
 
         alpha, f_new, g_new, ls_nfev, ls_failed = _strong_wolfe(
             fun, s.x, s.f, s.g, direction, gd, maxls, dtype)
@@ -259,8 +264,8 @@ def lbfgs(fun: Callable[[jnp.ndarray], Tuple[jnp.ndarray, jnp.ndarray]],
         x_new = s.x + alpha * direction
         s_vec = x_new - s.x
         y_vec = g_new - s.g
-        sy = jnp.vdot(s_vec, y_vec)
-        good_pair = sy > 1e-10 * jnp.vdot(y_vec, y_vec)
+        sy = _vdot(s_vec, y_vec)
+        good_pair = sy > 1e-10 * _vdot(y_vec, y_vec)
         # Ring-buffer shift: drop oldest, append newest (masked if pair is bad).
         S = jnp.where(good_pair, jnp.concatenate([s.S[1:], s_vec[None]], axis=0), s.S)
         Y = jnp.where(good_pair, jnp.concatenate([s.Y[1:], y_vec[None]], axis=0), s.Y)
@@ -269,7 +274,7 @@ def lbfgs(fun: Callable[[jnp.ndarray], Tuple[jnp.ndarray, jnp.ndarray]],
                                          (1.0 / jnp.where(sy == 0, 1.0, sy))[None]]),
                         s.rho)
         gamma = jnp.where(good_pair,
-                          sy / jnp.maximum(jnp.vdot(y_vec, y_vec), 1e-30), s.gamma)
+                          sy / jnp.maximum(_vdot(y_vec, y_vec), 1e-30), s.gamma)
 
         f_drop = s.f - f_new
         rel = jnp.maximum(jnp.maximum(jnp.abs(s.f), jnp.abs(f_new)), 1.0)

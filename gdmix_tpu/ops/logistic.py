@@ -34,6 +34,19 @@ class SparseBatch(NamedTuple):
     weights: jnp.ndarray   # [N] float, padding rows must be 0.0 (masks them out)
 
 
+def pad_rows(tree, multiple: int):
+    """Zero-pad dim 0 of every leaf to a multiple of `multiple` (zero values
+    and weights keep padding rows out of every data term)."""
+    leaves = jax.tree_util.tree_leaves(tree)
+    n = leaves[0].shape[0]
+    n_pad = -(-max(n, 1) // multiple) * multiple
+    if n_pad == n:
+        return tree
+    return jax.tree_util.tree_map(
+        lambda a: jnp.concatenate(
+            [a, jnp.zeros((n_pad - n,) + a.shape[1:], a.dtype)]), tree)
+
+
 def sparse_matvec(theta_w: jnp.ndarray, indices: jnp.ndarray,
                   values: jnp.ndarray) -> jnp.ndarray:
     """X·w for padded-COO X: [N] = Σ_k values[n,k] * w[indices[n,k]]."""
@@ -52,9 +65,7 @@ def sparse_rmatvec(indices: jnp.ndarray, values: jnp.ndarray,
 
 class SortedCoo(NamedTuple):
     """Flattened COO entries pre-sorted by feature id (a STATIC permutation):
-    Xᵀr becomes a sorted segment-sum instead of a random scatter-add — the
-    scatter is the fixed-effect gradient's bottleneck at large feature counts
-    on TPU (serialized updates), while sorted segment reductions vectorize."""
+    Xᵀr becomes a sorted segment-sum instead of a random scatter-add."""
     idx: jnp.ndarray    # [M] int32 feature ids, ascending
     row: jnp.ndarray    # [M] int32 source record ids
     val: jnp.ndarray    # [M] values (padding entries carry 0.0)
@@ -167,11 +178,11 @@ def fixed_effect_value_and_grad_onehot(x: jnp.ndarray,
                                        has_intercept: bool = True,
                                        model_type: str = "logistic_regression"):
     """Fixed-effect data term via chunked one-hot densification: each chunk's
-    padded-COO rows become a dense [chunk, D] block (VPU compare+select), and
-    both X·w and Xᵀr run on the MXU. Beats the scatter-add gradient on TPU
-    (measured 1.6× at N=5M, D=10k) because TPU scatters serialize. Exact same
-    math as fixed_effect_value_and_grad with l2_reg_weight=0 — the caller adds
-    the λ-term once (see FixedEffectLRModel._objective_fun).
+    padded-COO rows become a dense [chunk, D] block (compare+select), and
+    both X·w and Xᵀr run as dense matrix products at precision=HIGHEST (a
+    float32 product may otherwise run in TF32 on NVIDIA tensor cores). Exact
+    same math as fixed_effect_value_and_grad with l2_reg_weight=0 — the caller
+    adds the λ-term once (see FixedEffectLRModel._objective_fun).
 
     Requires batch length divisible by `chunk` (pad rows carry weight 0).
     """
@@ -189,13 +200,14 @@ def fixed_effect_value_and_grad_onehot(x: jnp.ndarray,
 
     chunks = SparseBatch(*[reshape(a) for a in batch])
     iota = jax.lax.broadcasted_iota(jnp.int32, (1, 1, num_features), 2)
+    hi = jax.lax.Precision.HIGHEST
 
     def body(carry, ch):
         v_acc, g_acc, r_acc = carry
         cb = SparseBatch(*ch)
         Xd = jnp.sum(jnp.where(cb.indices[:, :, None] == iota,
                                cb.values[:, :, None], 0.0), axis=1)
-        z = Xd @ w + cb.offsets + b
+        z = jnp.matmul(Xd, w, precision=hi) + cb.offsets + b
         if model_type == "linear_regression":
             per = (cb.labels - z) ** 2
             dz = 2.0 * (z - cb.labels)
@@ -203,7 +215,8 @@ def fixed_effect_value_and_grad_onehot(x: jnp.ndarray,
             per = stable_bce(z, cb.labels)
             dz = jax.nn.sigmoid(z) - cb.labels
         r = cb.weights * dz
-        return (v_acc + jnp.sum(cb.weights * per), g_acc + Xd.T @ r,
+        return (v_acc + jnp.sum(cb.weights * per),
+                g_acc + jnp.matmul(r, Xd, precision=hi),
                 r_acc + jnp.sum(r)), None
 
     init = (jnp.zeros((), dtype), jnp.zeros((num_features,), dtype),
@@ -225,20 +238,21 @@ def fixed_effect_value_and_grad_block(x: jnp.ndarray,
     """Fixed-effect data term via TWO-LEVEL one-hot decomposition.
 
     The single-level one-hot path compares every entry against all D feature
-    ids (N·K·D VPU work — the round-1 FE bottleneck at large D). Here each id
-    splits as idx = hi·lane + lo, and with θ₂ = w reshaped [A, lane]
-    (A = ⌈D/lane⌉):
+    ids (N·K·D elementwise work at large D). Here each id splits as
+    idx = hi·lane + lo, and with θ₂ = w reshaped [A, lane] (A = ⌈D/lane⌉):
 
       gather   θ[idx]  = Σ_l onehot(hi)·θ₂ ⊙ onehot(lo)   (one [e,A]@[A,lane]
-                                                           MXU matmul + select)
+                                                           matmul + select)
       scatter  Xᵀr     = (onehot(hi) ⊙ v·r)ᵀ @ onehot(lo)  (one [A,e]@[e,lane]
-                                                           MXU matmul)
+                                                           matmul)
 
     One-hot construction drops to N·K·(A + lane) compares — ~D/(A+lane)×
-    less VPU work (≈50× at D=10k) — and the N·K·D MACs ride the MXU. Works at
-    ANY feature count (no VMEM [T, D] tile: the biggest intermediate is
-    [chunk·K, A]). Same math as fixed_effect_value_and_grad with
-    l2_reg_weight=0; the caller adds the λ-term once.
+    less elementwise work (≈50× at D=10k) — and the N·K·D multiply-adds run
+    as dense matrix products. Works at ANY feature count (the biggest
+    intermediate is [chunk·K, A]). `precision` must be float32-accurate
+    (HIGHEST, or the exact "bf16x2" split) for solver parity. Same math as
+    fixed_effect_value_and_grad with l2_reg_weight=0; the caller adds the
+    λ-term once.
 
     Replaces the reference's whole-epoch TF graph hot loop
     (fixed_effect_lr_lbfgs_model.py:309-392). Requires batch length divisible
@@ -257,11 +271,11 @@ def fixed_effect_value_and_grad_block(x: jnp.ndarray,
     d_pad = a_blocks * lane
     theta2 = jnp.zeros((d_pad,), dtype).at[:num_features].set(w) \
         .reshape(a_blocks, lane)
-    # precision="bf16x2": exact two-term bf16 splits ride the MXU in single
-    # native passes (DEFAULT), one-hots are bf16-EXACT (entries 0/1) so the
-    # HBM one-hot spill halves vs f32 operands; error ~2^-17 relative (two
-    # dots per side), well inside L-BFGS tolerance. Plain DEFAULT would round
-    # θ/ce to one bf16 term (2^-8) — too coarse for solver parity.
+    # precision="bf16x2": exact two-term bf16 splits run as single native
+    # bf16 passes (DEFAULT), one-hots are bf16-EXACT (entries 0/1) so the
+    # one-hot operand's memory traffic halves vs f32; error ~2^-17 relative
+    # (two dots per side), well inside L-BFGS tolerance. Plain DEFAULT would
+    # round θ/ce to one bf16 term (2^-8) — too coarse for solver parity.
     split = precision == "bf16x2"
     if split:
         f32 = jnp.float32
@@ -335,18 +349,13 @@ class HybridAux(NamedTuple):
     """Hot/cold feature split for the wide-D fixed-effect regime.
 
     Recommender feature spaces are power-law: at D≫1M MOST entries hit a
-    small hot set. The D-independent scatter path costs ~9 ns/entry for the
-    forward gather plus ~7 ns/entry for the backward scatter on v5e
-    (scripts/fe_hybrid_probe.py: 0.73 s + 0.58 s at 80M entries, D=1M) —
-    both per-ENTRY, serialized memory ops the MXU never sees. The hybrid
-    remaps the top-A frequent features to a compact id space and runs ALL
-    entries through the two-level one-hot block path over that compact space
-    (O(A) instead of O(D), MXU matmuls), while only the few cold-tail
-    entries pay the per-entry gather/scatter price against the full D
-    (≈20 ns/entry measured, but on a ~5-20% minority). The reference's
-    sparse TF graph is D-independent too (fixed_effect_lr_lbfgs_model.py:
-    214-392) but CPU-bound ~8 s/funcall-class; this beats it structurally:
-    the bulk rides the MXU (VERDICT r4 task 1).
+    small hot set. The D-independent scatter path pays a per-ENTRY random
+    gather (forward) and scatter-add (backward). The hybrid remaps the top-A
+    frequent features to a compact id space and runs ALL entries through the
+    two-level one-hot block path over that compact space (O(A) instead of
+    O(D), dense matrix products), while only the cold-tail minority pays the
+    per-entry gather/scatter against the full D. The reference's sparse TF
+    graph is D-independent too (fixed_effect_lr_lbfgs_model.py:214-392).
 
     Built ONCE per fit by build_hybrid_aux (the batch is fixed across
     L-BFGS iterations; sweeps reuse it via the device cache)."""
@@ -355,21 +364,6 @@ class HybridAux(NamedTuple):
     cold_idx: jnp.ndarray  # [Mc] int32 global ids of cold entries (pad: 0)
     cold_row: jnp.ndarray  # [Mc] int32 source record ids (pad: 0)
     cold_val: jnp.ndarray  # [Mc] values (pad: 0.0 — inert)
-    # Optional WINDOWED cold layouts (extend_hybrid_aux_windowed): both
-    # scatters become sorted window-local one-hot matmuls in the pallas
-    # windowed_scatter kernel (~2 ns/entry vs XLA's ~7-10); the random
-    # gather halves stay XLA (the two scatters need opposite sort orders).
-    gs_idxl: Optional[jnp.ndarray] = None  # [Mg/16,16] id − win·W (id-sorted)
-    gs_val: Optional[jnp.ndarray] = None   # [Mg/16,16] values (pad 0)
-    gs_row: Optional[jnp.ndarray] = None   # [Mg/16,16] source record ids
-    gs_win: Optional[jnp.ndarray] = None   # [n_tiles_g] window per tile
-    zs_rowl: Optional[jnp.ndarray] = None  # [Mz/16,16] row − win·W (row-major)
-    zs_idx: Optional[jnp.ndarray] = None   # [Mz/16,16] global feature ids
-    zs_val: Optional[jnp.ndarray] = None   # [Mz/16,16] values (pad 0)
-    zs_win: Optional[jnp.ndarray] = None   # [n_tiles_z] window per tile
-    zs_nwin: Optional[jnp.ndarray] = None  # [n_windows_z] int8 zeros — the
-    #   row-window count rides as a SHAPE (the kernel needs it static, and
-    #   it is not recoverable from the other arrays)
 
 
 @functools.lru_cache(maxsize=None)
@@ -392,14 +386,12 @@ def _hybrid_hot_fn(hot: int):
     return f
 
 
-# Cost model for the ADAPTIVE hot-set size (hot_features=0), per entry, from
-# the v5e full-N measurements (scripts/fe_hybrid_probe4.py at e=80M: hybrid
-# hot-side ≈ 0.09 s @ A=8k / 0.14 s @ 16k / 0.20 s @ 32k after subtracting
-# the cold term; cold per-entry gather+scatter+z ≈ 35 ns):
+# Cost model for the ADAPTIVE hot-set size (hot_features=0), per entry:
 #   hot(A, e)  ≈ e · (HOT_BASE + HOT_PER_FEATURE · A)
 #   cold(A, e) ≈ cold_fraction(A) · e · COLD_ENTRY_S
-# The constants are one chip generation's calibration — the SHAPE of the
-# tradeoff (O(A) VPU one-hot build vs per-entry cold walk) is architectural.
+# Only the constants' RATIOS matter (the argmin over A). They are an earlier
+# accelerator's calibration, not yet measured on the GPU — the SHAPE of the
+# tradeoff (O(A) one-hot build vs per-entry cold walk) is architectural.
 HYBRID_HOT_BASE_S = 0.6e-9
 HYBRID_HOT_PER_FEATURE_S = 5.8e-14
 HYBRID_COLD_ENTRY_S = 35e-9
@@ -453,10 +445,9 @@ def build_hybrid_aux(indices, values, num_features: int, *,
 
     hot_features=0 (the default) picks the hot-set size ADAPTIVELY: the
     builder already holds the frequency counts, so it evaluates the
-    measured cost model (HYBRID_* constants) at pow-2 candidate sizes and
-    takes the argmin — steeper distributions get smaller hot sets, flatter
-    ones bigger (zipf-1.2 resolves to ~16k, zipf-1.0 to ~32-64k on the
-    probe-4 workload).
+    cost model (HYBRID_* constants) at pow-2 candidate sizes and takes the
+    argmin — steeper distributions get smaller hot sets, flatter ones bigger
+    (zipf-1.2 at N=5M, K=16, D=1M resolves to 16384).
 
     Multi-host safe: every pass is a jitted SPMD computation over the
     global arrays; host fetches are of fully-replicated values."""
@@ -492,8 +483,8 @@ def build_hybrid_aux(indices, values, num_features: int, *,
         return None
     # capacity tiers bound recompiles across fits; 1/8-mantissa pow2 steps
     # keep the padding ≤12.5% — cold padding entries are inert but still
-    # PROCESSED by the per-entry scatter, so a plain pow2 tier would
-    # inflate the cold side's cost up to 2x (measured on probe4)
+    # PROCESSED by the per-entry scatter, so a plain pow2 tier could double
+    # the cold side's work
     mult = max(int(pad_multiple), 1)
     mc_eff = max(mc, 1)
     step = 1 << max((mc_eff - 1).bit_length() - 3, 0)
@@ -501,73 +492,6 @@ def build_hybrid_aux(indices, values, num_features: int, *,
     mc_pad = ((mc_pad + mult - 1) // mult) * mult
     build = _hybrid_build_fn(num_features, a_eff, mc_pad, shardings)
     return build(indices, values, hot_ids)
-
-
-HYBRID_SCATTER_WINDOW = 4096
-HYBRID_SCATTER_TILE_ROWS = 128   # 2048 entries per kernel tile
-
-
-def _windowed_layout(key, idx, row, val, num_targets: int,
-                     window: int, tile_rows: int):
-    """Sort cold entries by `key`, group them into aligned target windows
-    with per-window padding to whole kernel tiles (every window gets at
-    least one tile — the kernel zero-initializes blocks only on visit).
-    Returns ([M/16,16] key_local, idx, row, val, [n_tiles] win) arrays."""
-    mc = key.shape[0]
-    order = jnp.argsort(key)           # padding (key 0, val 0) sorts first
-    skey = key[order]
-    sidx, srow, sval = idx[order], row[order], val[order]
-    nw = (num_targets + window - 1) // window
-    bounds = jnp.searchsorted(skey, jnp.arange(1, nw + 1) * window)
-    bounds_h = np.asarray(jax.device_get(bounds), np.int64)
-    counts = np.diff(np.concatenate([[0], bounds_h]))
-    tile_e = tile_rows * 16
-    padded = np.maximum((counts + tile_e - 1) // tile_e, 1) * tile_e
-    offs = np.concatenate([[0], np.cumsum(padded)])
-    m_pad = int(offs[-1])
-    win_of_tile = np.repeat(np.arange(nw, dtype=np.int32),
-                            (padded // tile_e).astype(np.int64))
-    # int32 positions: entry counts stay far below 2^31 (the padded COO
-    # itself is int32-indexed)
-    starts = jnp.asarray(np.concatenate([[0], np.cumsum(counts)[:-1]]),
-                         jnp.int32)
-    offs_dev = jnp.asarray(offs[:-1], jnp.int32)
-    win_of_entry = skey // window
-    dest = (offs_dev[win_of_entry]
-            + (jnp.arange(mc, dtype=jnp.int32) - starts[win_of_entry]))
-    key_local = (skey - win_of_entry * window).astype(jnp.int32)
-
-    def place(a, dtype):
-        return jnp.zeros((m_pad,), dtype).at[dest].set(a.astype(dtype)) \
-            .reshape(m_pad // 16, 16)
-    return (place(key_local, jnp.int32), place(sidx, jnp.int32),
-            place(srow, jnp.int32), place(sval, jnp.float32),
-            jnp.asarray(win_of_tile))
-
-
-def extend_hybrid_aux_windowed(aux: HybridAux, num_features: int,
-                               num_rows: int, *,
-                               tile_rows: int = HYBRID_SCATTER_TILE_ROWS
-                               ) -> HybridAux:
-    """Attach the windowed cold layouts (see HybridAux fields) for the
-    pallas windowed-scatter kernel. SINGLE-DEVICE only (pallas_call is not
-    GSPMD-sharded; multi-chip meshes keep the XLA cold side). Built once
-    per fit from the flat cold arrays; one small host fetch of per-window
-    counts per layout. The window size is the module constant (the
-    objective derives the tile geometry from the aux shapes but assumes
-    HYBRID_SCATTER_WINDOW)."""
-    window = HYBRID_SCATTER_WINDOW
-    g_idxl, _, g_row, g_val, g_win = _windowed_layout(
-        aux.cold_idx, aux.cold_idx, aux.cold_row, aux.cold_val,
-        num_features, window, tile_rows)
-    z_rowl, z_idx, _, z_val, z_win = _windowed_layout(
-        aux.cold_row, aux.cold_idx, aux.cold_row, aux.cold_val,
-        num_rows, window, tile_rows)
-    nw_z = (num_rows + window - 1) // window
-    return aux._replace(gs_idxl=g_idxl, gs_val=g_val, gs_row=g_row,
-                        gs_win=g_win, zs_rowl=z_rowl, zs_idx=z_idx,
-                        zs_val=z_val, zs_win=z_win,
-                        zs_nwin=jnp.zeros((nw_z,), jnp.int8))
 
 
 def fixed_effect_value_and_grad_hybrid(x: jnp.ndarray,
@@ -580,30 +504,29 @@ def fixed_effect_value_and_grad_hybrid(x: jnp.ndarray,
                                        model_type: str = "logistic_regression",
                                        lane: int = 128,
                                        precision=jax.lax.Precision.HIGHEST,
-                                       interpret: bool = False):
+                                       row_map=None):
     """Fixed-effect data term with the hot/cold split (see HybridAux).
 
     Forward: z = z_hot + z_cold + offset + b, where z_hot rides the compact
-    two-level one-hot gather (same MXU construction as
+    two-level one-hot gather (same matmul construction as
     fixed_effect_value_and_grad_block, dump slot gathers θ=0 so cold entries
     contribute nothing) and z_cold is a per-entry gather+row-scatter over
     the cold minority. Backward mirrors it: the compact [A]-gradient comes
     off the matmul scatter and lands in grad[hot_ids] (A unique indices);
-    cold entries scatter-add straight into grad[D]. When the aux carries
-    the windowed layouts (extend_hybrid_aux_windowed), both cold scatters
-    ride the pallas windowed_scatter kernel instead of XLA's ~7-10 ns/entry
-    walk. Exact same math as fixed_effect_value_and_grad with
-    l2_reg_weight=0 — the caller adds the λ-term once. Requires batch
-    length divisible by `chunk`."""
+    cold entries scatter-add straight into grad[D]. Exact same math as
+    fixed_effect_value_and_grad with l2_reg_weight=0 — the caller adds the
+    λ-term once.
+
+    The hot scan is row-local: `row_map(fn, shared, rows)` runs it
+    (parallel/mesh.sum_over_rows on a multi-device mesh, each device on its
+    own rows); the cold side's gather/scatter-add run over the whole batch.
+    Rows are zero-padded to a multiple of `chunk` inside the scan."""
     dtype = x.dtype
     if has_intercept:
         w, b = x[:-1], x[-1]
     else:
         w, b = x, jnp.zeros((), dtype)
     n, k = aux.hot_idx.shape
-    assert n % chunk == 0, (n, chunk)
-    c = n // chunk
-    e = chunk * k
     a_eff = aux.hot_ids.shape[0]
     a_blocks = (a_eff + 1 + lane - 1) // lane   # +1: the dump slot gathers 0
     a_pad = a_blocks * lane
@@ -618,43 +541,18 @@ def fixed_effect_value_and_grad_hybrid(x: jnp.ndarray,
             .astype(jnp.bfloat16)
 
     # cold forward correction: fold into the offsets the scan consumes
-    windowed = aux.zs_win is not None
-    if windowed:
-        from gdmix_tpu.ops.pallas.windowed_scatter import \
-            windowed_scatter_add_pallas
-        # window + tile geometry rides in the aux shapes (n_windows·W spans
-        # the padded target; rows/tiles gives the tile height)
-        nw_z = aux.zs_nwin.shape[0]
-        tile_rows_z = aux.zs_rowl.shape[0] // aux.zs_win.shape[0]
-        tile_rows_g = aux.gs_idxl.shape[0] // aux.gs_win.shape[0]
-        W = HYBRID_SCATTER_WINDOW
-        # cold forward: w-gather stays XLA; the row accumulation rides the
-        # windowed kernel over the row-major-sorted layout
-        wv = (jnp.take(w, aux.zs_idx) * aux.zs_val.astype(dtype)) \
-            .astype(jnp.float32)
-        # the layout's window count rides as zs_nwin's SHAPE; its span must
-        # cover every batch row (the builder was given the padded count)
-        assert nw_z * W >= n, (nw_z, W, n)
-        z_cold = windowed_scatter_add_pallas(
-            aux.zs_rowl, wv, aux.zs_win, num_windows=nw_z, window=W,
-            tile_rows=tile_rows_z,
-            interpret=interpret)[:n].astype(dtype)
-    else:
-        z_cold = jnp.zeros((n,), dtype).at[aux.cold_row] \
-            .add(jnp.take(w, aux.cold_idx) * aux.cold_val.astype(dtype))
+    z_cold = jnp.zeros((n,), dtype).at[aux.cold_row] \
+        .add(jnp.take(w, aux.cold_idx) * aux.cold_val.astype(dtype))
     offsets2 = batch.offsets + z_cold
 
-    def reshape(arr):
-        return arr.reshape((c, chunk) + arr.shape[1:])
-
-    chunks = (reshape(aux.hot_idx), reshape(batch.values), reshape(offsets2),
-              reshape(batch.labels), reshape(batch.weights))
     iota_a = jax.lax.broadcasted_iota(jnp.int32, (1, a_blocks), 1)
     iota_l = jax.lax.broadcasted_iota(jnp.int32, (1, lane), 1)
 
     def body(carry, ch):
         v_acc, g2_acc = carry
         c_idx, c_val, c_off, c_lab, c_wt = ch
+        chunk, k = c_idx.shape
+        e = chunk * k
         idx = c_idx.reshape(e)
         onehot_dt = jnp.bfloat16 if split else dtype
         hi1 = (idx[:, None] // lane == iota_a).astype(onehot_dt)  # [e, A/l]
@@ -696,71 +594,26 @@ def fixed_effect_value_and_grad_hybrid(x: jnp.ndarray,
                                      preferred_element_type=dtype)
         return (v_acc + jnp.sum(c_wt * per), g2_acc + g2), r
 
-    init = (jnp.zeros((), dtype), jnp.zeros((a_blocks, lane), dtype))
-    (value, grad2), r_chunks = jax.lax.scan(body, init, chunks)
-    r_full = r_chunks.reshape(n)
+    def hot_scan(_, rows):
+        n_local = rows[0].shape[0]
+        ch = min(chunk, n_local)
+        chunks = tuple(a.reshape((-1, ch) + a.shape[1:])
+                       for a in pad_rows(rows, ch))
+        init = (jnp.zeros((), dtype), jnp.zeros((a_blocks, lane), dtype))
+        summed, r_chunks = jax.lax.scan(body, init, chunks)
+        return summed, r_chunks.reshape(-1)[:n_local]
+
+    rows = (aux.hot_idx, batch.values, offsets2, batch.labels, batch.weights)
+    (value, grad2), r_full = (hot_scan((), rows) if row_map is None
+                              else row_map(hot_scan, (), rows))
     grad_hot = grad2.reshape(a_pad)[:a_eff]
-    if windowed:
-        ce = (aux.gs_val.astype(dtype)
-              * jnp.take(r_full, aux.gs_row)).astype(jnp.float32)
-        nw_g = (num_features + W - 1) // W
-        grad_w = windowed_scatter_add_pallas(
-            aux.gs_idxl, ce, aux.gs_win, num_windows=nw_g, window=W,
-            tile_rows=tile_rows_g,
-            interpret=interpret)[:num_features].astype(dtype) \
-            .at[aux.hot_ids].add(grad_hot)
-    else:
-        grad_w = jnp.zeros((num_features,), dtype) \
-            .at[aux.cold_idx].add(aux.cold_val.astype(dtype)
-                                  * jnp.take(r_full, aux.cold_row)) \
-            .at[aux.hot_ids].add(grad_hot)
+    grad_w = jnp.zeros((num_features,), dtype) \
+        .at[aux.cold_idx].add(aux.cold_val.astype(dtype)
+                              * jnp.take(r_full, aux.cold_row)) \
+        .at[aux.hot_ids].add(grad_hot)
     grad = (jnp.concatenate([grad_w, jnp.sum(r_full)[None]])
             if has_intercept else grad_w)
     return value, grad
-
-
-def fixed_effect_value_and_grad_hybrid_pallas(x: jnp.ndarray,
-                                              batch: SparseBatch,
-                                              aux: HybridAux,
-                                              num_features: int,
-                                              *,
-                                              has_intercept: bool = True,
-                                              model_type: str =
-                                              "logistic_regression",
-                                              tile: int = 2048,
-                                              interpret: bool = False):
-    """fixed_effect_value_and_grad_hybrid with the hot side fused into the
-    Pallas MXU kernel (ops/pallas/fe_hybrid.py): XLA rewrites the compact
-    one-hot matmuls back into its ~9 ns/entry per-entry gather machinery, so
-    the XLA hybrid recovers only ~1.2x of the wide-D funcall; the kernel
-    keeps the one-hots in VMEM and the arithmetic on the MXU. The cold
-    minority stays on XLA per-entry ops (gather w / scatter grad), fed by
-    the kernel's residual output. Exact same math as the XLA hybrid at
-    two-term-bf16-split precision (~2^-17 relative)."""
-    from gdmix_tpu.ops.pallas.fe_hybrid import fe_hybrid_hot_pallas
-    dtype = x.dtype
-    if has_intercept:
-        w, b = x[:-1], x[-1]
-    else:
-        w, b = x, jnp.zeros((), dtype)
-    n = aux.hot_idx.shape[0]
-    z_cold = jnp.zeros((n,), jnp.float32).at[aux.cold_row] \
-        .add((jnp.take(w, aux.cold_idx) * aux.cold_val.astype(dtype))
-             .astype(jnp.float32))
-    offsets2 = batch.offsets.astype(jnp.float32) + z_cold
-    theta_c = jnp.take(w, aux.hot_ids)
-    loss, g_hot, rsum, r = fe_hybrid_hot_pallas(
-        theta_c, b, aux.hot_idx, batch.values, batch.labels, batch.weights,
-        offsets2, hot=aux.hot_ids.shape[0],
-        linear=(model_type == "linear_regression"),
-        tile=tile, interpret=interpret)
-    grad_w = jnp.zeros((num_features,), dtype) \
-        .at[aux.cold_idx].add(aux.cold_val.astype(dtype)
-                              * jnp.take(r, aux.cold_row).astype(dtype)) \
-        .at[aux.hot_ids].add(g_hot.astype(dtype))
-    grad = (jnp.concatenate([grad_w, rsum[None].astype(dtype)])
-            if has_intercept else grad_w)
-    return loss.astype(dtype), grad
 
 
 def per_entity_value_and_grad(theta: jnp.ndarray,
@@ -860,4 +713,4 @@ def hessian_full(theta: jnp.ndarray, batch: SparseBatch, num_features: int, *,
         X = (jnp.concatenate([X, ones], axis=1) if intercept_at_end
              else jnp.concatenate([ones, X], axis=1))
     dX = X * d[:, None]
-    return X.T @ dX
+    return jnp.matmul(X.T, dX, precision=jax.lax.Precision.HIGHEST)

@@ -1,6 +1,7 @@
-"""Multi-chip random-effect data plane: shuffle-by-entity over ICI.
+"""Multi-chip random-effect data plane: shuffle-by-entity over the
+device interconnect.
 
-The TPU equivalent of the reference's Spark shuffle + partition assignment
+The SPMD equivalent of the reference's Spark shuffle + partition assignment
 (/root/reference/gdmix-data/src/main/scala/com/linkedin/gdmix/data/
 DataPartitioner.scala:235-276 routes records to the partition owning their
 entity; /root/reference/gdmix-trainer/src/gdmix/drivers/random_effect_driver.py:

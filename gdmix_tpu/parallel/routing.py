@@ -1,11 +1,12 @@
 """All-to-all example routing: send each record to the shard owning its entity.
 
-The ICI replacement for Spark's shuffle-by-entity (SURVEY.md §5-comm): the
+The interconnect replacement for Spark's shuffle-by-entity (SURVEY.md §5-comm): the
 random-effect coefficient table is row-sharded over the mesh, so examples must
 move to the chip holding their entity's coefficients. Implemented as the
 standard fixed-capacity exchange (MoE-style): each shard sorts its records by
 destination, packs them into [P, C] capacity-padded slots, and one
-`jax.lax.all_to_all` delivers every slot — O(N/P) per link, riding ICI.
+`jax.lax.all_to_all` delivers every slot — O(N/P) per link, over the device
+interconnect.
 
 Capacity C is static (XLA needs static shapes); records beyond a destination's
 capacity are dropped and reported via the per-shard overflow count, so callers

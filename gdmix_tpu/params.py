@@ -18,6 +18,8 @@ _STAGES = (constants.FIXED_EFFECT, constants.RANDOM_EFFECT)
 _MODEL_TYPES = (constants.LOGISTIC_REGRESSION, constants.LINEAR_REGRESSION,
                 constants.DETEXT)
 _VARIANCE_MODES = (constants.FULL, constants.SIMPLE)
+# fixed-effect gradient strategies (FixedEffectLRModel._objective_fun)
+GRAD_MODES = ("auto", "block", "onehot", "scatter", "segment", "hybrid")
 
 T = TypeVar("T")
 
@@ -150,7 +152,7 @@ class LRParams:
 class FixedLRParams(LRParams):
     """Fixed-effect extras (reference fixed_effect_lr_lbfgs_model.py:55-71).
 
-    TPU additions: `dtype` selects the on-device solve precision; `train_chunk_size`
+    Additions: `dtype` selects the on-device solve precision; `train_chunk_size`
     bounds the per-step device batch when scanning very large datasets.
     """
     copy_to_local: bool = False
@@ -164,71 +166,63 @@ class FixedLRParams(LRParams):
     # Tfrecord input without custom_input_fn only; composes with multi-host
     # (each process streams its own file shard, shapes agreed at stream end).
     stream_chunk_rows: int = 0
-    # gradient strategy: "block" is the two-level one-hot decomposition (MXU
-    # gather/scatter via hi/lo matmuls, any feature count), "onehot" densifies
-    # chunks against the full D (fast only at small D), "scatter" is the
-    # gather/scatter-add path, "pallas" the fused VMEM kernel
-    # (ops/pallas/fe_grad.py), "pallas_block" the fused two-level kernel
-    # (ops/pallas/fe_block.py — measured alternative, see its docstring),
-    # "pallas_flat" the flat entry-space gather/scatter pair (ops/pallas/
-    # fe_flat.py — experimental SMALL-BATCH opt-in only: its [E, 1] entry
-    # columns tile to 512 B/entry in HBM, 40 GB at N=5M/K=16, and lose to
-    # "block" on HBM traffic whenever they do fit), "hybrid" the hot/cold
-    # feature split for the wide-D power-law regime (top-hot_features ids
-    # through block's compact MXU path, cold tail through per-entry
-    # gather/scatter; degrades to scatter when the data has no hot set),
-    # "auto" picks by feature count
-    grad_mode: str = "auto"   # "auto"|"block"|"onehot"|"scatter"|"hybrid"|"pallas"|"pallas_block"|"pallas_gather"|"pallas_flat"
+    # gradient strategy (one of GRAD_MODES): "block" is the two-level one-hot
+    # decomposition (gather/scatter as hi/lo matmuls, any feature count),
+    # "onehot" densifies chunks against the full D (small D only), "scatter"
+    # is the gather/scatter-add path, "segment" the feature-sorted
+    # segment-sum, "hybrid" the hot/cold feature split for the wide-D
+    # power-law regime (top-hot_features ids through block's compact path,
+    # cold tail through per-entry gather/scatter; degrades to scatter when
+    # the data has no hot set), "auto" picks by feature count
+    grad_mode: str = "auto"
     onehot_max_features: int = 16384
     block_min_features: int = 1024  # auto: block above, onehot at/below
-    # auto: block's measured win-region ceiling — its O(D) cost crosses the
-    # D-independent scatter path at ~700k features (v5e, N=5M K=16,
-    # scripts/fe_wide_d.py); past it auto takes the hot/cold hybrid
+    # auto: block's ceiling — its cost is O(D) while scatter's is
+    # D-independent; past it auto takes the hot/cold hybrid
     block_max_features: int = 700_000
     # hybrid mode: compact hot-set size (top-A features by batch frequency)
     # and the cold-entry fraction above which the split stops paying and the
-    # builder falls back to plain scatter (data-driven, e.g. uniform ids)
-    # 0 = ADAPTIVE: the builder evaluates the measured cost model at pow-2
-    # candidate sizes against the batch's own frequency profile (steeper
-    # distribution -> smaller hot set). Explicit values pin A; the probe-4
-    # optimum at D=1M zipf-1.2 was 16384 (0.40 s/funcall vs scatter's
-    # 1.37 s, 3.4x; 8k/32k within 15%).
+    # builder falls back to plain scatter (data-driven, e.g. uniform ids).
+    # 0 = ADAPTIVE: the builder evaluates its cost model at pow-2 candidate
+    # sizes against the batch's own frequency profile (steeper distribution
+    # -> smaller hot set). Explicit values pin A.
     hot_features: int = 0
     hybrid_cold_max_frac: float = 0.5
-    # windowed cold scatters (pallas windowed_scatter kernel over sorted
-    # layouts): "auto" = on for single-device TPU meshes (the kernel is not
-    # GSPMD-sharded; multi-chip keeps the XLA cold side), "on"/"off" force
-    hybrid_windowed_cold: str = "auto"
     block_chunk_size: int = 8192    # records per scan step in block mode
-    # MXU dot precision for block mode: "float32" = bf16x3 (~f32-accurate —
-    # measured identical objective to "highest" at N=5M/D=10k, 15% faster;
-    # the one-hot operand is exact in bf16). "default" (1-pass bf16) rounds θ.
-    block_precision: str = "float32"  # "highest"|"float32"|"bf16x2"|"default"
+    # dot precision of the block/hybrid one-hot products: "float32" is
+    # float32-accurate (Precision.HIGHEST; "highest" is its old alias),
+    # "bf16x2" is the exact two-term bf16 split (~2^-17 relative), "default"
+    # is the backend's fastest mode (one bf16 or TF32 pass: rounds θ, unfit
+    # for solver parity)
+    block_precision: str = "float32"
 
     def __post_init__(self):
         super().__post_init__()
         assert self.fixed_effect_variance_mode is None \
             or self.fixed_effect_variance_mode in _VARIANCE_MODES
+        if self.grad_mode not in GRAD_MODES:
+            raise ValueError(f"unknown grad_mode {self.grad_mode!r}; choose "
+                             f"one of {', '.join(GRAD_MODES)}")
 
 
 @dataclass
 class REParams(LRParams):
     """Random-effect extras (reference random_effect_lr_lbfgs_model.py:34-53).
 
-    The queue/consumer knobs of the reference are process-pool artifacts; their TPU
-    analogs are the bucketing knobs: `max_samples_per_bucket` etc.
+    The queue/consumer knobs of the reference are process-pool artifacts; their
+    device-side analogs are the bucketing knobs.
     """
     partition_entity: Optional[str] = None
     enable_local_indexing: bool = False
     random_effect_variance_mode: Optional[str] = None
     disable_random_effect_scoring_after_training: bool = False
-    # Reference knobs kept for config compatibility (no-ops on TPU):
+    # Reference knobs kept for config compatibility (no-ops here):
     max_training_queue_size: int = 10
     training_queue_timeout_in_seconds: int = 300
     num_of_consumers: int = 2
-    # TPU additions:
+    # additions:
     dtype: str = "float32"
-    # "auto" = Newton–Cholesky for small per-entity dims (fast MXU path),
+    # "auto" = Newton–Cholesky for small per-entity dims (batched dense path),
     # L-BFGS otherwise; both reach the same convex optimum (tests verify).
     batch_solver: str = "auto"   # "auto"|"lbfgs"|"newton"|"newton_dual"
     newton_max_dim: int = 128       # auto threshold on 1+u_cap
@@ -237,20 +231,20 @@ class REParams(LRParams):
     # Newton-rate convergence with no [B, dim, dim] Hessian; this caps the
     # [B, n, n] kernel memory
     dual_newton_max_elems: int = 200_000_000
-    # otherwise L-BFGS runs on DENSIFIED [B, n, dim] matrices (MXU
+    # otherwise L-BFGS runs on DENSIFIED [B, n, dim] matrices (batched dense
     # matvecs) whenever the bucket fits this element budget; per-lane sparse
-    # gather/scatter (which serializes on TPU) is the last resort
+    # gather/scatter is the last resort
     dense_lbfgs_max_elems: int = 200_000_000
     # two-phase Newton: run everyone for this many iterations, then compact the
     # unconverged stragglers to the front ON DEVICE (argsort + lax.switch
     # prefix ladder, no host round-trip) and finish them (0 = disabled).
     newton_phase1_iters: int = 0
-    # random-effect training plane: "sharded" routes records over ICI to
-    # entity-owner shards and groups/packs on device (fit_records_sharded —
-    # the multi-chip plane); "host" groups/buckets in numpy (fit_groups);
-    # "auto" takes the device plane whenever the feature bag is rectangular
-    # (padded [N, K]) AND the mesh has >1 device — on a 1-device mesh there
-    # is no ICI to ride and on-device grouping loses to the host marshal.
+    # random-effect training plane: "sharded" routes records over the device
+    # interconnect to entity-owner shards and groups/packs on device
+    # (fit_records_sharded — the multi-chip plane); "host" groups/buckets in
+    # numpy (fit_groups); "auto" takes the device plane whenever the feature
+    # bag is rectangular (padded [N, K]) AND the mesh has >1 device — on a
+    # 1-device mesh there is nothing to route.
     # Under multi-process, sharded solves each process's entities on
     # its LOCAL mesh; the cross-process level stays partition round-robin +
     # model files (≡ random_effect_driver.py:60-68).

@@ -4,7 +4,9 @@ Accepts the reference's GDMix config dialect verbatim (gdmix-workflow/test/
 resources/lr-movieLens.yaml): output_dir + fixed_effect_config {name: {...,
 gdmix_config: {...}}} + random_effect_config {name: {..., num_partitions,
 gdmix_config}} with YAML anchors. spark_config/tfjob_config blocks are accepted
-and ignored (single-process TPU runs don't need them).
+and ignored (single-process SPMD runs don't need them). PyYAML is imported only
+where a file is read, so configs built with from_dict need nothing beyond the
+numerical stack.
 """
 from __future__ import annotations
 
@@ -12,7 +14,6 @@ import copy
 from dataclasses import dataclass, field
 from typing import Dict
 
-import yaml
 from gdmix_tpu.io import fs
 
 MODELS = "models"
@@ -31,6 +32,7 @@ class WorkflowConfig:
 
     @classmethod
     def from_file(cls, path: str) -> "WorkflowConfig":
+        import yaml
         with fs.open(path) as f:
             return cls.from_dict(yaml.safe_load(f))
 

@@ -1,7 +1,7 @@
 """Distributed workflow: job DAG emission + multi-host launch.
 
 The reference compiles a Kubeflow Pipeline of TFJob/SparkApplication CRDs
-(gdmix-workflow/src/gdmixworkflow/distributed/container_ops.py). The TPU-native
+(gdmix-workflow/src/gdmixworkflow/distributed/container_ops.py). The SPMD
 equivalent has no separate Spark cluster or parameter servers to orchestrate —
 one SPMD program per host covers every stage — so distribution reduces to:
 
@@ -13,7 +13,7 @@ one SPMD program per host covers every stage — so distribution reduces to:
      condition, fail the pipeline on job failure), with subprocesses instead
      of CRDs and ready-set parallelism instead of `.after()` chaining
   3. `maybe_initialize_distributed`: `jax.distributed.initialize` from env
-     (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID — the TPU-world
+     (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID — the JAX
      replacement for TF_CONFIG cluster specs)
 """
 from __future__ import annotations
@@ -31,6 +31,10 @@ from gdmix_tpu.workflow.config import (METRIC, MODELS, PARTITION,
                                        WorkflowConfig)
 
 logger = logging.getLogger(__name__)
+
+# job types that run the JAX trainer on the accelerators; every other type is
+# a host-only data job
+DEVICE_JOB_TYPES = frozenset({"gdmix_tpu_train"})
 
 
 def maybe_initialize_distributed() -> Dict[str, int]:
@@ -182,8 +186,13 @@ def execute_job_dag(jobs: List[dict], max_parallel: int = 1,
                     timeout_per_job: float = 3600.0) -> List[str]:
     """Run a job DAG (from `generate_job_dag` or a compiled JSON file) with
     dependency ordering. Jobs whose dependencies have all succeeded run
-    concurrently up to `max_parallel`. Any failure aborts the pipeline with
-    the failing job's output — the launcher contract of the reference's
+    concurrently up to `max_parallel`, except that device jobs
+    (DEVICE_JOB_TYPES) run one at a time: a trainer process takes every local
+    accelerator (the FE mesh spans them all) and reserves most of each
+    card's memory, so a second trainer beside it would fail for want of
+    memory. Host-only data jobs may run beside a device job. Any failure
+    aborts the pipeline with the failing job's output — the launcher
+    contract of the reference's
     `K8sCR.wait_for_condition` (launch_crd.py:31-101). Returns the completion
     order."""
     by_name = {j["name"]: j for j in jobs}
@@ -194,13 +203,26 @@ def execute_job_dag(jobs: List[dict], max_parallel: int = 1,
     running: Dict[str, subprocess.Popen] = {}
     run_env = dict(os.environ, **(env or {}))
 
+    def is_device(name):
+        return by_name[name]["type"] in DEVICE_JOB_TYPES
+
     def ready():
         return [n for n, j in pending.items()
                 if all(d in done for d in j["depends_on"])
                 and n not in running]
 
     while pending or running:
-        for name in ready()[: max(max_parallel - len(running), 0)]:
+        device_busy = any(is_device(n) for n in running)
+        launch = []
+        for name in ready():
+            if len(running) + len(launch) >= max_parallel:
+                break
+            if is_device(name):
+                if device_busy:
+                    continue
+                device_busy = True
+            launch.append(name)
+        for name in launch:
             logger.info("DAG: launching %s: %s", name,
                         " ".join(pending[name]["command"]))
             running[name] = subprocess.Popen(

@@ -125,7 +125,7 @@ def _splitter(argv) -> None:
 
 
 def _offset_updater(argv) -> None:
-    """Flags mirror the reference's OffsetUpdaterParser.scala:8-135; the TPU
+    """Flags mirror the reference's OffsetUpdaterParser.scala:8-135; the device
     build additionally takes --metadataFile (+ optional --outputMetadataFile,
     --featureBag) because TFRecord reads need declared metadata where Spark
     infers a DataFrame schema."""

@@ -1,10 +1,10 @@
-"""Kubernetes workflow surface: TPU-native manifests + a kubectl launcher.
+"""Kubernetes workflow surface: GPU Job manifests + a kubectl launcher.
 
 The reference ships this as Kubeflow Pipeline container ops that template
 TFJob / SparkApplication CRDs (container_ops.py:22-190) plus sidecar launcher
 images that create a CRD and poll its conditions until Succeeded/Failed
-(launch_crd.py:25-152, launch_tfjob.py:36-148). The TPU-native equivalent
-needs neither custom resources nor operator installs:
+(launch_crd.py:25-152, launch_tfjob.py:36-148). The SPMD equivalent needs
+neither custom resources nor operator installs:
 
 * every trainer stage is ONE SPMD program per host, so a multi-host stage is a
   plain `batch/v1` Job with `completionMode: Indexed` — the pod's
@@ -34,13 +34,9 @@ from typing import Dict, List, Optional
 import yaml
 
 from gdmix_tpu.workflow.config import WorkflowConfig
-from gdmix_tpu.workflow.distributed import generate_job_dag
+from gdmix_tpu.workflow.distributed import DEVICE_JOB_TYPES, generate_job_dag
 
 logger = logging.getLogger(__name__)
-
-# stage types that run the SPMD trainer (may span hosts); everything else is
-# a single-pod CPU data job
-_TRAINER_TYPES = {"gdmix_tpu_train"}
 
 
 def _sanitize(name: str) -> str:
@@ -68,10 +64,9 @@ def job_manifest(job: dict, *,
                  namespace: str = "default",
                  image: str = "gdmix-tpu",
                  num_hosts: int = 1,
-                 tpu_resource: str = "google.com/tpu",
-                 tpu_chips_per_host: int = 4,
-                 tpu_accelerator: Optional[str] = None,
-                 tpu_topology: Optional[str] = None,
+                 gpu_resource: str = "nvidia.com/gpu",
+                 gpus_per_host: int = 4,
+                 gpu_accelerator: Optional[str] = None,
                  memory: str = "4Gi",
                  data_volume: Optional[dict] = None,
                  env: Optional[Dict[str, str]] = None,
@@ -84,11 +79,13 @@ def job_manifest(job: dict, *,
     PROCESS_ID=i, NUM_PROCESSES=num_hosts and COORDINATOR_ADDRESS pointing at
     pod 0 through the headless service — exactly what
     `gdmix_tpu.workflow.distributed.maybe_initialize_distributed` consumes.
-    TPU pods carry the GKE node selectors + `google.com/tpu` chip requests
-    (the accelerator/topology pair selects the slice shape).
+    Trainer pods request `gpus_per_host` GPUs through the NVIDIA device
+    plugin's `nvidia.com/gpu` resource; `gpu_accelerator` (e.g.
+    "nvidia-h100-80gb") pins the GPU model with GKE's accelerator node
+    selector. Data jobs request no GPU.
     """
     name = k8s_name or _sanitize(job["name"])
-    is_trainer = job["type"] in _TRAINER_TYPES
+    is_trainer = job["type"] in DEVICE_JOB_TYPES
     hosts = num_hosts if is_trainer else 1
 
     env_list = [{"name": k, "value": str(v)} for k, v in (env or {}).items()]
@@ -96,13 +93,10 @@ def job_manifest(job: dict, *,
                        "requests": {"memory": memory}}
     node_selector: Dict[str, str] = {}
     if is_trainer:
-        resources["limits"][tpu_resource] = tpu_chips_per_host
-        resources["requests"][tpu_resource] = tpu_chips_per_host
-        if tpu_accelerator:
-            node_selector["cloud.google.com/gke-tpu-accelerator"] = \
-                tpu_accelerator
-        if tpu_topology:
-            node_selector["cloud.google.com/gke-tpu-topology"] = tpu_topology
+        resources["limits"][gpu_resource] = gpus_per_host
+        resources["requests"][gpu_resource] = gpus_per_host
+        if gpu_accelerator:
+            node_selector["cloud.google.com/gke-accelerator"] = gpu_accelerator
 
     manifests: List[dict] = []
     if hosts > 1:
@@ -177,8 +171,8 @@ def compile_kubernetes(config_path: str, output_dir: str,
     """Compile the workflow into Kubernetes manifests: one YAML per DAG node
     (Service+Job documents) plus `plan.json` recording launch order and
     dependencies. Resource knobs come from the config's `k8s_config` block
-    (namespace, image, num_hosts, tpu_accelerator, tpu_topology,
-    tpu_chips_per_host, memory, data_volume) — the reference reads the same
+    (namespace, image, num_hosts, gpu_resource, gpus_per_host,
+    gpu_accelerator, memory, data_volume) — the reference reads the same
     from its tfjob_config/spark_config blocks (container_ops.py:22-60);
     `tfjob_config.workerNum` is honored as a num_hosts fallback. Keyword
     overrides win over the config."""

@@ -3,7 +3,7 @@
 Mirrors the reference gdmix-workflow entry (gdmixworkflow/main.py:12-66).
 Modes:
   single_node — the reference semantics: file-based handoffs between stages
-  in_memory   — the TPU-native fast path: in-HBM score ledger, no stage files
+  in_memory   — the device-resident fast path: in-HBM score ledger, no stage files
   distributed — initialize jax.distributed from env and run single_node SPMD;
                 with --compile_dag_to, emit the job DAG instead of running
   dag         — generate the job DAG and EXECUTE it (one subprocess per job,
@@ -46,7 +46,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--re_mode", default=None,
                         choices=["auto", "host", "sharded"],
                         help="random-effect training plane (in_memory mode): "
-                             "sharded = ICI routing + on-device grouping "
+                             "sharded = device routing + on-device grouping "
                              "(fit_records_sharded), host = numpy grouping; "
                              "auto (default, also a YAML top-level key) takes "
                              "sharded whenever the feature bag is rectangular")
@@ -57,7 +57,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", action="store_true",
                         help="skip coordinates whose evalSummary.json exists "
                              "(single_node mode: restart a crashed run)")
-    # accepted for reference-config compatibility; unused on TPU:
+    # accepted for reference-config compatibility; unused here:
     parser.add_argument("--jar_path", default="", help=argparse.SUPPRESS)
     return parser
 

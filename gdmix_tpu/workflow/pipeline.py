@@ -1,6 +1,6 @@
 """In-memory coordinate-descent pipeline: NO file I/O between coordinates.
 
-This is the TPU-native fast path the reference architecture can't offer: where
+This is the device-resident fast path the reference architecture can't offer: where
 GDMix writes scores/partitions/offsets to HDFS between every stage (SURVEY.md §1
 "every layer boundary is file I/O"), here the uid-keyed score ledger lives in
 memory, the offset update (OffsetUpdater semantics) is a vectorized join, entity
@@ -19,7 +19,7 @@ import json
 import logging
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -79,13 +79,14 @@ class InMemoryPipeline:
 
     re_mode selects the random-effect training plane:
       * "host":    group entities on host (numpy) and solve vmapped buckets
-      * "sharded": route records to entity-owner shards over ICI and group on
-                   device (parallel/entity_sharding) — the multi-chip path
+      * "sharded": route records to entity-owner shards over the device
+                   interconnect and group on device
+                   (parallel/entity_sharding) — the multi-chip path
       * "auto":    the default — "sharded" iff the feature bag is
                    rectangular AND the (process-local) mesh has >1 device;
-                   on a single device the on-device grouping loses to the
-                   host marshal (~2.2x measured), so auto keeps "host" there
-                   (same rule as RandomEffectLRModel.fit_flat)
+                   on a single device there is nothing to route, so auto
+                   keeps "host" there (same rule as
+                   RandomEffectLRModel.fit_flat)
 
     Under multi-process the two parallelism levels COMPOSE (≡ the reference's
     partitions-across-workers × pool-within-worker,
@@ -101,15 +102,18 @@ class InMemoryPipeline:
         self.num_sweeps = num_sweeps
         self.re_mode = re_mode
         self.metrics: Dict[str, float] = {}
+        # validation AUC per coordinate after each sweep (`metrics` holds the
+        # last); from sweep 2 on every coordinate trains against the others'
+        # newest scores, so the ladder between coordinates flattens
+        self.sweep_metrics: List[Dict[str, float]] = []
 
     def _use_sharded_re(self, data: PerRecordData) -> bool:
         if self.re_mode == "auto":
             # same auto semantics as RandomEffectLRModel.fit_flat and
             # docs/CONFIG.md: the device plane needs a rectangular padded bag
             # (intercept-only coordinates — indices None — keep the host
-            # grouping) AND a >1-device mesh: with a single device there is no
-            # ICI to ride and the on-device grouping loses to the host marshal
-            # (measured ~2.2x slower per 100k entities on one chip)
+            # grouping) AND a >1-device mesh: with a single device there is
+            # nothing to route
             import jax
             from gdmix_tpu.parallel.mesh import get_mesh, local_mesh
             mesh = get_mesh() if jax.process_count() == 1 else local_mesh()
@@ -204,7 +208,7 @@ class InMemoryPipeline:
         # share ONE cache and one HBM-resident copy of the static columns
         # serves both; multi-host they differ (the fit view is this
         # process's sample shard) and each gets its own cache — statics
-        # still cross the link exactly once per view (VERDICT r4 task 5).
+        # still cross the link exactly once per view.
         fe_caches = {"fit": {}, "valid": {}}
         fe_caches["score_train"] = fe_caches["fit"] if nproc == 1 else {}
         for sweep in range(self.num_sweeps):
@@ -258,7 +262,7 @@ class InMemoryPipeline:
                     active = self._active_records(item["train"], pcfg)
                     if nproc > 1:
                         # two composed levels: round-robin entity OWNERSHIP
-                        # across processes (model-file exchange), ICI routing
+                        # across processes (model-file exchange), interconnect routing
                         # within each process's local mesh
                         from gdmix_tpu.data.partitioner import \
                             factorize_entities
@@ -324,6 +328,7 @@ class InMemoryPipeline:
                     self.metrics[name] = float(auc_metric(
                         valid_ledger.total,
                         self._labels(item["valid"], params)))
+            self.sweep_metrics.append(dict(self.metrics))
 
         # ---- persist final artifacts (chief only under multi-host) ----
         if rank == 0:

@@ -201,8 +201,8 @@ def test_multi_worker_sharded_scoring(detext_data, tmp_path):
 def test_two_process_training_matches_single(detext_data, tmp_path):
     """REAL two-process SPMD deep-tower training (2 procs x 2 virtual devices):
     per-process batch shards + all-reduced grads must reproduce the
-    single-process run — the TPU re-design of DeText on TFJob worker
-    replicas (reference container_ops.py:91-114); VERDICT r4 task 2."""
+    single-process run — the JAX re-design of DeText on TFJob worker
+    replicas (reference container_ops.py:91-114)."""
     import json
     import subprocess
     import sys

@@ -73,7 +73,7 @@ def test_detext_pipeline_auc_lift(tmp_path):
 
 def test_detext_pipeline_on_remote_scheme(tmp_path):
     """The detext coordinate's FULL operational surface on a remote scheme
-    (VERDICT r4 task 2): output_dir = mem:// — the deep tower's orbax
+   : output_dir = mem:// — the deep tower's orbax
     checkpoint uploads dir-wise through the fs seam, its scores land on the
     fake remote, and the downstream RE consumes them from there."""
     from gdmix_tpu.io import fs as fslib

@@ -77,14 +77,20 @@ def test_full_lr_pipeline_auc_lift(ml_data, tmp_path):
 
 
 def test_yaml_config_compatibility(tmp_path):
-    """The reference's lr-movieLens.yaml parses into our WorkflowConfig."""
-    cfg = WorkflowConfig.from_file(
-        "/root/reference/gdmix-workflow/test/resources/lr-movieLens.yaml")
+    """The reference workflow's lr-movieLens.yaml dialect (anchors and merge
+    keys included) parses into our WorkflowConfig."""
+    cfg = WorkflowConfig.from_file(os.path.join(
+        os.path.dirname(__file__), "resources", "lr-movieLens.yaml"))
     assert list(cfg.fixed_effect_config) == ["global"]
     assert list(cfg.random_effect_config) == ["per-user", "per-movie"]
     g = cfg.fixed_effect_config["global"]
     assert g["gdmix_config"]["label_column_name"] == "response"
-    assert cfg.random_effect_config["per-user"]["num_partitions"] == 1
+    assert g["gdmix_config"]["weight_column_name"] == "weight"
+    assert g["l2_reg_weight"] == 1.0            # merged from the anchor
+    user = cfg.random_effect_config["per-user"]
+    assert user["num_partitions"] == 1
+    assert user["gdmix_config"] == cfg.extras["gdmix_config"]
+    assert cfg.extras["tfjob_config"]["workerNum"] == 2
 
 
 def test_resume_skips_completed_coordinates(ml_data, tmp_path):

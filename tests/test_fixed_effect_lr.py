@@ -256,3 +256,28 @@ def test_predict_mode(tmp_path):
     order = np.argsort(got["uid"])
     np.testing.assert_allclose(got["predictionScorePerCoordinate"][order],
                                ds["X"] @ w + b, atol=1e-5)
+
+
+def test_effective_grad_mode_auto_resolution():
+    """auto resolves to the concrete strategy: block in
+    (block_min_features, block_max_features], onehot at/below
+    onehot_max_features, hybrid beyond block's ceiling (whose builder
+    degrades to scatter when the data has no hot set). Explicit modes pass
+    through."""
+    from gdmix_tpu.models.fixed_effect_lr import effective_grad_mode
+    assert effective_grad_mode("auto", 10_000, 1024, 16384) == "block"
+    assert effective_grad_mode("auto", 1024, 1024, 16384) == "onehot"
+    assert effective_grad_mode("auto", 50, 1024, 16384) == "onehot"
+    # degenerate config: past both ceilings -> hybrid
+    assert effective_grad_mode("auto", 18_000, 20_000, 16384) == "hybrid"
+    # wide-D regime: block's O(D) cost crosses the D-independent paths
+    assert effective_grad_mode("auto", 100_000, 1024, 16384) == "block"
+    assert effective_grad_mode("auto", 700_000, 1024, 16384) == "block"
+    assert effective_grad_mode("auto", 700_001, 1024, 16384) == "hybrid"
+    assert effective_grad_mode("auto", 10_000_000, 1024, 16384) == "hybrid"
+    # the ceiling is a tunable (pin the parameter wiring)
+    assert effective_grad_mode("auto", 2_000_000, 1024, 16384,
+                               block_max_features=5_000_000) == "block"
+    # segment is explicit-only; explicit modes are never overridden
+    for m in ("block", "onehot", "scatter", "segment", "hybrid"):
+        assert effective_grad_mode(m, 10_000, 1024, 16384) == m

@@ -232,7 +232,7 @@ def test_gzip_tfrecord_remote_commits_on_close(memfs):
 def test_gzip_write_body_failure_lands_nothing(memfs):
     """If the writer body raises, the remote store must NOT see a truncated
     gzip object: _OwnedGzipWriter aborts (closes without committing a valid
-    file) instead of committing partial bytes on close (ADVICE r4)."""
+    file) instead of committing partial bytes on close."""
     from gdmix_tpu.io import tfrecord
     path = "mem://bkt/tf/fail.tfrecord.gz"
     with pytest.raises(RuntimeError):
@@ -244,7 +244,7 @@ def test_gzip_write_body_failure_lands_nothing(memfs):
 
 def test_gzip_trailer_flush_failure_lands_nothing(memfs):
     """If the gzip trailer flush itself raises on close, the partial object
-    must be discarded, not committed (ADVICE r4)."""
+    must be discarded, not committed."""
     from gdmix_tpu.io import tfrecord
     path = "mem://bkt/tf/fail2.tfrecord.gz"
     w = tfrecord._open_write(path, "GZIP")

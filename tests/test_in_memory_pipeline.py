@@ -37,7 +37,7 @@ def test_matches_file_based_workflow(ml_data, tmp_path):
 
 
 def test_sharded_re_mode_matches_host_mode(ml_data, tmp_path):
-    """The multi-chip RE plane (ICI all-to-all routing + on-device grouping
+    """The multi-chip RE plane (all-to-all routing + on-device grouping
     over the 8-device virtual mesh) must reproduce the host-grouped pipeline:
     same per-coordinate AUC ladder, same exported models."""
     from gdmix_tpu.io.model_avro import load_sparse_models_from_avro
@@ -68,11 +68,10 @@ def test_sharded_re_mode_matches_host_mode(ml_data, tmp_path):
 
 def test_cli_default_routes_sharded(ml_data, tmp_path, monkeypatch):
     """A plain `--mode in_memory` CLI run takes the multi-chip sharded RE
-    plane BY DEFAULT on the 8-device virtual mesh (VERDICT r2 item 1:
-    fit_records_sharded is the user-reachable production path, matching the
-    reference where the partitioned plane is the default,
-    random_effect_driver.py:60-68 — not an opt-in), and --re_mode host
-    opts out."""
+    plane BY DEFAULT on the 8-device virtual mesh (fit_records_sharded is
+    the user-reachable production path, matching the reference where the
+    partitioned plane is the default, random_effect_driver.py:60-68 — not an
+    opt-in), and --re_mode host opts out."""
     import yaml
     from gdmix_tpu.models.random_effect_lr import RandomEffectLRModel
     from gdmix_tpu.workflow.main import main
@@ -111,7 +110,7 @@ def test_cli_default_routes_sharded(ml_data, tmp_path, monkeypatch):
 
 
 def test_auto_single_device_routes_host(ml_data, tmp_path, monkeypatch):
-    """re_mode=auto means ONE thing everywhere (VERDICT r3 weak #2): on a
+    """re_mode=auto means ONE thing everywhere: on a
     1-device mesh BOTH InMemoryPipeline._use_sharded_re and
     RandomEffectLRModel.fit_flat take the measured-faster host plane
     (fit_groups); on the default 8-device mesh both take the sharded plane

@@ -31,8 +31,9 @@ def _write_cfg(tmp_path, extras=None):
 def test_compile_kubernetes_manifests(tmp_path):
     cfg = _write_cfg(tmp_path, extras={
         "k8s_config": {"namespace": "gdmix", "image": "gdmix-tpu:v1",
-                       "num_hosts": 4, "tpu_accelerator": "tpu-v5e",
-                       "tpu_topology": "2x2", "memory": "8Gi"}})
+                       "num_hosts": 4, "gpus_per_host": 8,
+                       "gpu_accelerator": "nvidia-h100-80gb",
+                       "memory": "8Gi"}})
     out = str(tmp_path / "k8s")
     plan = compile_kubernetes(cfg, out)
     # 2 FE jobs + 3 per RE coordinate × 2 coordinates = 8 nodes
@@ -41,7 +42,7 @@ def test_compile_kubernetes_manifests(tmp_path):
         saved = json.load(f)["jobs"]
     assert [j["name"] for j in saved] == [j["name"] for j in plan]
 
-    # trainer node: Indexed multi-host Job + headless Service, TPU resources
+    # trainer node: Indexed multi-host Job + headless Service, GPU resources
     fe_train = next(j for j in plan if j["type"] == "gdmix_tpu_train")
     docs = list(yaml.safe_load_all(
         open(os.path.join(out, fe_train["manifest"]))))
@@ -54,8 +55,10 @@ def test_compile_kubernetes_manifests(tmp_path):
     pod = spec["template"]["spec"]
     c = pod["containers"][0]
     assert c["image"] == "gdmix-tpu:v1"
-    assert c["resources"]["limits"]["google.com/tpu"] == 4
-    assert pod["nodeSelector"]["cloud.google.com/gke-tpu-topology"] == "2x2"
+    assert c["resources"]["limits"]["nvidia.com/gpu"] == 8
+    assert c["resources"]["requests"]["nvidia.com/gpu"] == 8
+    assert pod["nodeSelector"]["cloud.google.com/gke-accelerator"] == \
+        "nvidia-h100-80gb"
     env = {e["name"]: e for e in c["env"]}
     # the jax.distributed env contract (distributed.py:38-44)
     assert env["NUM_PROCESSES"]["value"] == "4"
@@ -65,7 +68,7 @@ def test_compile_kubernetes_manifests(tmp_path):
         env["PROCESS_ID"]["valueFrom"]["fieldRef"]["fieldPath"]
     assert c["command"][0:3] == ["python", "-m", "gdmix_tpu.gdmix"]
 
-    # data node: single-pod CPU Job, no service, no TPU request
+    # data node: single-pod CPU Job, no service, no GPU request
     part = next(j for j in plan if j["type"] == "gdmix_tpu_partition")
     docs = list(yaml.safe_load_all(
         open(os.path.join(out, part["manifest"]))))
@@ -73,14 +76,16 @@ def test_compile_kubernetes_manifests(tmp_path):
     spec = docs[0]["spec"]
     assert "completions" not in spec
     limits = spec["template"]["spec"]["containers"][0]["resources"]["limits"]
-    assert "google.com/tpu" not in limits
+    assert "nvidia.com/gpu" not in limits
+    assert "nodeSelector" not in spec["template"]["spec"]
     # dependency edges survive sanitization
     assert part["depends_on"] == ["global-compute-metric"]
 
 
 def test_tfjob_config_worker_num_fallback(tmp_path):
-    """The reference's tfjob_config.workerNum (lr-movieLens.yaml:93) maps to
-    num_hosts when no k8s_config block overrides it."""
+    """The reference's tfjob_config.workerNum (tests/resources/
+    lr-movieLens.yaml) maps to num_hosts when no k8s_config block overrides
+    it."""
     cfg = _write_cfg(tmp_path, extras={"tfjob_config": {"workerNum": 2}})
     plan = compile_kubernetes(cfg, str(tmp_path / "k8s"))
     fe_train = next(j for j in plan if j["type"] == "gdmix_tpu_train")

@@ -282,7 +282,7 @@ def test_block_grad_matches_reference_path(model_type, has_intercept):
 
 def test_block_bf16x2_matches_reference_path():
     """precision="bf16x2" (exact two-term bf16 splits, single-pass dots) stays
-    within ~2^-17 relative of the f32 reference data term — the fast TPU block
+    within ~2^-17 relative of the f32 reference data term — the fast block
     mode must not degrade gradients beyond L-BFGS tolerance."""
     from gdmix_tpu.ops.logistic import fixed_effect_value_and_grad_block
     d, n, k = 300, 96, 7
@@ -362,7 +362,7 @@ def _zipf_sparse(n=512, d=300, k=6, seed=0):
                           ("logistic_regression", False),
                           ("linear_regression", True)])
 def test_hybrid_grad_matches_reference_path(model_type, has_intercept):
-    """fixed_effect_value_and_grad_hybrid (hot/cold split, VERDICT r4 task 1)
+    """fixed_effect_value_and_grad_hybrid (hot/cold split)
     ≡ fixed_effect_value_and_grad on the data term, with BOTH sides active
     (small hot set on power-law ids → real cold tail)."""
     from gdmix_tpu.ops.logistic import (build_hybrid_aux,
@@ -521,89 +521,3 @@ def test_hybrid_adaptive_hot_size():
     np.testing.assert_allclose(float(v_hy), float(v_ref), rtol=1e-12)
     np.testing.assert_allclose(np.asarray(g_hy), np.asarray(g_ref),
                                atol=1e-9)
-
-
-def test_hybrid_windowed_cold_matches_plain():
-    """The windowed cold layouts (sorted entries + pallas windowed_scatter,
-    interpret mode here) must reproduce the flat XLA cold side exactly —
-    the same objective with and without the layouts, and vs scatter."""
-    from gdmix_tpu.ops.logistic import (build_hybrid_aux,
-                                        extend_hybrid_aux_windowed,
-                                        fixed_effect_value_and_grad_hybrid)
-    rng = np.random.RandomState(0)
-    n, k, d, a = 2048, 6, 9000, 32
-    u = rng.rand(n, k)
-    idx = (np.minimum(np.exp(u * np.log(d)).astype(int), d) - 1) \
-        .astype(np.int32)
-    vals = rng.randn(n, k).astype(np.float32)
-    vals[rng.rand(n, k) < 0.2] = 0.0
-    batch = _batch(idx, vals, (0.1 * rng.randn(n)).astype(np.float32),
-                   (rng.rand(n) < 0.5).astype(np.float32),
-                   rng.rand(n).astype(np.float32))
-    aux = build_hybrid_aux(batch.indices, batch.values, d, hot_features=a,
-                           cold_max_frac=1.0)
-    auxw = extend_hybrid_aux_windowed(aux, d, n, tile_rows=8)
-    x = jnp.asarray(rng.randn(d + 1) * 0.1, jnp.float32)
-    v0, g0 = fixed_effect_value_and_grad_hybrid(x, batch, aux, d, chunk=256)
-    v1, g1 = fixed_effect_value_and_grad_hybrid(x, batch, auxw, d, chunk=256,
-                                                interpret=True)
-    np.testing.assert_allclose(float(v1), float(v0), rtol=1e-6)
-    scale = float(np.max(np.abs(np.asarray(g0))))
-    np.testing.assert_allclose(np.asarray(g1), np.asarray(g0),
-                               atol=1e-6 * scale)
-
-
-def test_hybrid_windowed_cold_model_fit(tmp_path):
-    """End-to-end FE fit with hybrid_windowed_cold=on (kernel in interpret
-    mode on CPU) equals the scipy oracle."""
-    from tests.test_fixed_effect_lr import (_make_dataset, _params,
-                                            _scipy_fe_oracle)
-    from gdmix_tpu.models.fixed_effect_lr import FixedEffectLRModel
-    from gdmix_tpu import constants
-    ds = _make_dataset(tmp_path, seed=47)
-    model_params, base_params = _params(ds, tmp_path, grad_mode="hybrid",
-                                        hot_features=6,
-                                        hybrid_cold_max_frac=1.0,
-                                        hybrid_windowed_cold="on",
-                                        block_chunk_size=32, dtype="float32",
-                                        lbfgs_pgtol=1e-6)
-    model = FixedEffectLRModel(model_params, base_params)
-    model.train(ds["train_dir"], None, ds["md_file"], model.checkpoint_path,
-                {constants.TASK_INDEX: 0, constants.NUM_WORKERS: 1,
-                 constants.IS_CHIEF: True}, base_params)
-    oracle = _scipy_fe_oracle(ds["X"], ds["y"], ds["offsets"], ds["weights"],
-                              lam=model_params.l2_reg_weight,
-                              regularize_bias=model_params.regularize_bias)
-    np.testing.assert_allclose(model.model_coefficients, oracle, atol=5e-3)
-
-
-def test_windowed_layout_invariants():
-    """_windowed_layout contract: every entry lands exactly once at its
-    window-local position, every window owns at least one whole tile (the
-    kernel zero-initializes only blocks it visits), win_of_tile is
-    non-decreasing, and padding slots are inert (val 0)."""
-    from gdmix_tpu.ops.logistic import (_windowed_layout,
-                                        HYBRID_SCATTER_WINDOW)
-    rng = np.random.RandomState(9)
-    mc, targets = 5000, 3 * HYBRID_SCATTER_WINDOW
-    key = jnp.asarray(rng.randint(0, targets, mc), jnp.int32)
-    val = jnp.asarray(rng.randn(mc), jnp.float32)
-    row = jnp.asarray(rng.randint(0, 100, mc), jnp.int32)
-    tile_rows = 8
-    kl, ki, kr, kv, win = _windowed_layout(key, key, row, val, targets,
-                                           HYBRID_SCATTER_WINDOW, tile_rows)
-    kl, kv, win = np.asarray(kl), np.asarray(kv), np.asarray(win)
-    n_tiles = kl.shape[0] // tile_rows
-    assert win.shape == (n_tiles,)
-    assert np.all(np.diff(win) >= 0)                     # sorted windows
-    nw = targets // HYBRID_SCATTER_WINDOW
-    assert set(win.tolist()) == set(range(nw))           # full coverage
-    assert np.all(kl >= 0) and np.all(kl < HYBRID_SCATTER_WINDOW)
-    # reconstruct the scatter on host and compare against the direct one
-    table = np.zeros(targets)
-    win_of_slot = np.repeat(win, tile_rows * 16)
-    np.add.at(table, win_of_slot * HYBRID_SCATTER_WINDOW + kl.reshape(-1),
-              kv.reshape(-1).astype(np.float64))
-    ref = np.zeros(targets)
-    np.add.at(ref, np.asarray(key), np.asarray(val, np.float64))
-    np.testing.assert_allclose(table, ref, atol=1e-6)

@@ -131,7 +131,7 @@ def test_two_process_single_file_sample_sharding(tmp_path):
 
 
 def test_two_process_streamed_ingestion_matches_eager(tmp_path):
-    """Multi-host OUT-OF-CORE FE (VERDICT r3 task 5): each process streams
+    """Multi-host OUT-OF-CORE FE: each process streams
     its file shard in 32-row chunks (uneven shards → different chunk counts
     and a short tail on one process); coefficients must match the scipy
     oracle (hence the eager 2-process run, which matches it too) and the

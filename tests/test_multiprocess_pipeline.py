@@ -1,13 +1,13 @@
 """REAL two-process full-pipeline run (2 processes x 4 virtual devices = the
 8-device cluster): the 3-coordinate in-HBM pipeline under jax.distributed,
-AUC ladder asserted against the single-process run — the TPU equivalent of the
+AUC ladder asserted against the single-process run — the SPMD equivalent of the
 reference's CI e2e (.github/workflows/movieLens-py37.yml:26-41) plus its
 5-worker driver simulation (test/drivers/test_driver.py:13-99).
 
 The RE stage runs re_mode=sharded, composing the two parallelism levels the
 reference nests (partitions-across-workers x pool-within-worker,
 random_effect_lr_lbfgs_model.py:82-217): entity ownership round-robin across
-the 2 processes (model-file exchange) x ICI routing + on-device grouping over
+the 2 processes (model-file exchange) x interconnect routing + on-device grouping over
 each process's LOCAL 4-device mesh."""
 import json
 import os
@@ -39,7 +39,7 @@ def test_two_process_pipeline_matches_single(tmp_path):
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     procs = [subprocess.Popen(
-        [sys.executable, runner, str(pid), "2", ml, mp_out, "9931"],
+        [sys.executable, runner, str(pid), "2", ml, mp_out, "9941"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for pid in range(2)]
     outs = [p.communicate(timeout=840)[0].decode() for p in procs]
@@ -54,8 +54,8 @@ def test_two_process_pipeline_matches_single(tmp_path):
         # sweep went through the sharded plane on the process-LOCAL 4-device
         # mesh (2 coordinates x 2 sweeps), not the host-grouping fallback
         assert obj["sharded_calls"] == ["user_id", "movie_id"] * 2, obj
-        # multi-sweep device caches are ACTIVE under multi-host (VERDICT r4
-        # task 5): statics crossed the link once per VIEW, not per sweep —
+        # multi-sweep device caches are ACTIVE under multi-host: statics
+        # crossed the link once per VIEW, not per sweep —
         # FE = 3 views (fit shard, full-train score, valid score); each RE
         # coordinate's sharded plane = 1 → 2 total
         assert obj["static_uploads"] == {"FixedEffectLRModel": 3,
@@ -82,7 +82,7 @@ def test_two_process_pipeline_matches_single(tmp_path):
 def test_two_process_pipeline_over_fakefs_remote_scheme(tmp_path):
     """The multi-host RE model exchange, score writes and final artifacts
     demonstrably work over a non-POSIX-path scheme with two REAL processes
-    sharing ONE backing store (VERDICT r4 task 3): output_dir =
+    sharing ONE backing store: output_dir =
     fakefs://bucket/run, both processes mounting the same hidden local
     directory via GDMIX_FAKEFS_ROOT. MemFS is per-process and cannot test
     this — the reference's whole layer contract is a *shared* store
@@ -100,7 +100,7 @@ def test_two_process_pipeline_over_fakefs_remote_scheme(tmp_path):
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     env["GDMIX_FAKEFS_ROOT"] = store
     procs = [subprocess.Popen(
-        [sys.executable, runner, str(pid), "2", ml, mp_out, "9932",
+        [sys.executable, runner, str(pid), "2", ml, mp_out, "9942",
          "sharded", "fakefs://bucket/run"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for pid in range(2)]

@@ -205,3 +205,154 @@ def test_dual_variance_matches_explicit_hessian(full, reg_bias):
             expect = 1.0 / (np.diag(H) + eps)
         np.testing.assert_allclose(got[b], expect, rtol=1e-6,
                                    err_msg=f"lane {b} full={full}")
+
+
+# ------------------------------------------- batch-major shapes vs scipy ----
+
+def _lane_problems(B, n, dim, seed=0, ragged=True):
+    """Intercept column first, ragged per-lane counts (rows past the count
+    carry weight 0), both classes in every lane's real rows."""
+    rng = np.random.RandomState(seed)
+    X = np.concatenate([np.ones((B, n, 1)), 0.8 * rng.randn(B, n, dim - 1)],
+                       axis=-1)
+    counts = rng.randint(2, n + 1, B) if ragged else np.full(B, n)
+    w = (np.arange(n)[None, :] < counts[:, None]) \
+        * rng.uniform(0.5, 2.0, (B, n))
+    off = 0.3 * rng.randn(B, n)
+    z = np.einsum("bnd,bd->bn", X, rng.randn(B, dim)) + off
+    y = (rng.uniform(size=(B, n)) < expit(z)).astype(np.float64)
+    y[:, 0], y[:, 1] = 1.0, 0.0
+    return X, y, w, off, counts.astype(np.float64)
+
+
+def _scipy_lane(X, y, w, off, count, lam, unreg):
+    mask = np.ones(X.shape[1])
+    if unreg:
+        mask[0] = 0.0
+
+    def fg(t):
+        z = X @ t + off
+        bce = np.maximum(z, 0) - z * y + np.log1p(np.exp(-np.abs(z)))
+        return ((np.sum(w * bce) + 0.5 * lam * np.sum(mask * t * t)) / count,
+                (X.T @ (w * (expit(z) - y)) + lam * mask * t) / count)
+
+    return fmin_l_bfgs_b(fg, np.zeros(X.shape[1]), m=10, factr=10.0,
+                         pgtol=1e-11, maxiter=1000)[0]
+
+
+def _solve_lanes(X, y, w, off, counts, lam, unreg):
+    B, _, dim = X.shape
+    mask = np.ones(dim)
+    if unreg:
+        mask[0] = 0.0
+    return newton_lr_batch(
+        jnp.zeros((B, dim)), jnp.asarray(X), jnp.asarray(y), jnp.asarray(w),
+        jnp.asarray(off), jnp.asarray(counts), l2_reg_weight=lam,
+        l2_mask=jnp.asarray(mask), maxiter=100, ftol=1e-15, pgtol=1e-10)
+
+
+def _assert_matches_scipy(res, X, y, w, off, counts, lam, unreg, atol=2e-5):
+    assert bool(jnp.all(res.converged))
+    theta = np.asarray(res.theta)
+    for b in range(X.shape[0]):
+        n_b = int(counts[b])
+        want = _scipy_lane(X[b, :n_b], y[b, :n_b], w[b, :n_b], off[b, :n_b],
+                           counts[b], lam, unreg)
+        np.testing.assert_allclose(theta[b], want, atol=atol,
+                                   err_msg=f"lane {b}")
+
+
+@pytest.mark.parametrize("B,n,dim,unreg", [(12, 8, 5, True),
+                                           (130, 16, 25, True),
+                                           (64, 8, 25, False),
+                                           (48, 32, 40, True)])
+def test_batch_major_shapes_match_scipy(B, n, dim, unreg):
+    """Bucket shapes of the production tiers: B past a 128 multiple, dim up
+    to 40, regularized and unregularized intercepts."""
+    X, y, w, off, counts = _lane_problems(B, n, dim, seed=B)
+    res = _solve_lanes(X, y, w, off, counts, 0.7, unreg)
+    _assert_matches_scipy(res, X, y, w, off, counts, 0.7, unreg)
+
+
+def test_long_lanes_match_scipy():
+    """n = 512 samples per lane (the heavy tail's big tiers)."""
+    X, y, w, off, counts = _lane_problems(16, 512, 9, seed=5)
+    res = _solve_lanes(X, y, w, off, counts, 1.0, True)
+    _assert_matches_scipy(res, X, y, w, off, counts, 1.0, True)
+
+
+def test_padding_lanes_leave_real_lanes_unchanged():
+    """Zero-count padding lanes appended to a bucket converge at iteration 0
+    and the real lanes' solutions equal the unpadded bucket's."""
+    X, y, w, off, counts = _lane_problems(7, 8, 5, seed=9)
+    pad = 123
+    Xp = np.concatenate([X, np.zeros((pad,) + X.shape[1:])])
+    yp, wp, offp = (np.concatenate([a, np.zeros((pad, 8))])
+                    for a in (y, w, off))
+    cp = np.concatenate([counts, np.zeros(pad)])
+    full = _solve_lanes(Xp, yp, wp, offp, cp, 0.5, True)
+    sub = _solve_lanes(X, y, w, off, counts, 0.5, True)
+    assert int(jnp.max(full.num_iterations[7:])) == 0
+    np.testing.assert_allclose(np.asarray(full.theta[:7]),
+                               np.asarray(sub.theta), atol=1e-12)
+    _assert_matches_scipy(sub, X, y, w, off, counts, 0.5, True)
+
+
+def test_sparse_bucket_layout_matches_scipy():
+    """densify_bucket -> newton_lr_batch on the production COO bucket layout
+    (local feature ids, value-0 padding entries)."""
+    rng = np.random.RandomState(11)
+    B, n, k, u_cap = 20, 8, 3, 6
+    indices = rng.randint(0, u_cap, (B, n, k)).astype(np.int32)
+    values = rng.randn(B, n, k) * (rng.rand(B, n, k) < 0.8)
+    X = np.asarray(densify_bucket(jnp.asarray(indices), jnp.asarray(values),
+                                  u_cap, True))
+    y = (rng.uniform(size=(B, n)) < 0.5).astype(np.float64)
+    y[:, 0], y[:, 1] = 1.0, 0.0
+    w, off, counts = np.ones((B, n)), np.zeros((B, n)), np.full(B, float(n))
+    res = _solve_lanes(X, y, w, off, counts, 1.0, True)
+    _assert_matches_scipy(res, X, y, w, off, counts, 1.0, True)
+
+
+# -------------------------------------------------- damped Cholesky solve ----
+
+def _spd(B, d, seed):
+    rng = np.random.RandomState(seed)
+    Q = rng.randn(B, d, d)
+    return np.einsum("bij,bkj->bik", Q, Q) / d + np.eye(d)[None]
+
+
+def _damped(H, eps):
+    d = H.shape[-1]
+    diag = np.abs(np.diagonal(H, axis1=1, axis2=2))
+    return H + eps * (1.0 + diag)[:, :, None] * np.eye(d)[None]
+
+
+@pytest.mark.parametrize("B,d", [(4, 8), (130, 13), (256, 29)])
+def test_damped_cholesky_solve_matches_numpy(B, d):
+    from gdmix_tpu.ops.newton import damped_cholesky_solve
+    H = _spd(B, d, 0)
+    g = np.random.RandomState(1).randn(B, d)
+    x = damped_cholesky_solve(jnp.asarray(H), jnp.asarray(g), 1e-10)
+    want = np.linalg.solve(_damped(H, 1e-10), g[..., None])[..., 0]
+    np.testing.assert_allclose(np.asarray(x), want, rtol=1e-8, atol=1e-8)
+
+
+def test_damped_cholesky_solve_identity_rows():
+    """Identity systems (the padding-lane pattern) solve to g/(1 + 2ε)."""
+    from gdmix_tpu.ops.newton import damped_cholesky_solve
+    B, d, eps = 8, 5, 1e-10
+    H = np.broadcast_to(np.eye(d), (B, d, d)).copy()
+    g = np.arange(B * d, dtype=np.float64).reshape(B, d)
+    x = damped_cholesky_solve(jnp.asarray(H), jnp.asarray(g), eps)
+    np.testing.assert_allclose(np.asarray(x), g / (1 + 2 * eps), atol=1e-12)
+
+
+@pytest.mark.parametrize("B,d,r", [(4, 8, 2), (130, 13, 3), (200, 29, 2)])
+def test_damped_cholesky_solve_multiple_rhs(B, d, r):
+    from gdmix_tpu.ops.newton import damped_cholesky_solve
+    H = _spd(B, d, 2)
+    g = np.random.RandomState(3).randn(B, d, r)
+    x = damped_cholesky_solve(jnp.asarray(H), jnp.asarray(g), 1e-10)
+    want = np.linalg.solve(_damped(H, 1e-10), g)
+    np.testing.assert_allclose(np.asarray(x), want, rtol=1e-8, atol=1e-8)

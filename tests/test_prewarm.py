@@ -1,6 +1,5 @@
-"""Tier-ladder prewarm tool (VERDICT r3 task 8): compiles the sharded RE
-plane's shape ladder into the persistent XLA cache ahead of the first
-production dispatch (kills the ~19-min relay cold start). Runs in
+"""Tier-ladder prewarm tool: compiles the sharded RE plane's shape ladder
+into the persistent XLA cache ahead of the first production dispatch. Runs in
 subprocesses because jax pins the persistent cache dir at first use."""
 import os
 import subprocess
@@ -13,7 +12,7 @@ def _run(cache, extra):
     env = dict(os.environ,
                JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               GDMIX_TPU_COMPILE_CACHE=cache,
+               JAX_COMPILATION_CACHE_DIR=cache,
                JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0")
     out = subprocess.run(
         [sys.executable, "-m", "gdmix_tpu.tools.prewarm",

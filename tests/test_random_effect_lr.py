@@ -389,7 +389,7 @@ def test_model_save_load_save_idempotent(tmp_path):
 
 @pytest.mark.parametrize("variance_mode", [constants.SIMPLE, constants.FULL])
 def test_dense_lbfgs_solver_wide_support_oracle(variance_mode):
-    """_lbfgs_dense_solver (the MXU path for buckets past newton_max_dim) must
+    """_lbfgs_dense_solver (the dense path for buckets past newton_max_dim) must
     match both the sparse vmapped L-BFGS and the scipy per-entity oracle at
     dim > 128, including SIMPLE/FULL variances (reference solver semantics:
     binary_logistic_regression.py:144-239)."""

@@ -1,4 +1,4 @@
-"""Warm-sweep downlink skip (VERDICT r3 task 6): a bucket whose entities all
+"""Warm-sweep downlink skip: a bucket whose entities all
 converge AT their warm start reconstructs thetas from host theta0 instead of
 fetching [B, dim] floats back over the link — and the result is identical."""
 import numpy as np

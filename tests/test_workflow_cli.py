@@ -197,6 +197,36 @@ def test_execute_job_dag_ordering_and_failure(tmp_path):
         execute_job_dag([j("x", ["ghost"])])
 
 
+def test_execute_job_dag_runs_device_jobs_one_at_a_time(tmp_path):
+    """A trainer takes every local accelerator and most of its memory, so
+    device jobs never overlap even when max_parallel allows it; a data job
+    may still run beside one."""
+    import time
+    from gdmix_tpu.workflow.distributed import execute_job_dag
+    log = os.path.join(str(tmp_path), "spans.txt")
+
+    def j(name, typ):
+        prog = ("import sys, time; t0 = time.time(); time.sleep(0.6); "
+                f"open({log!r}, 'a').write('{name} %f %f\\n' "
+                "% (t0, time.time()))")
+        return {"name": name, "type": typ, "depends_on": [],
+                "command": [sys.executable, "-c", prog]}
+
+    t0 = time.time()
+    execute_job_dag([j("train-a", "gdmix_tpu_train"),
+                     j("train-b", "gdmix_tpu_train"),
+                     j("partition", "gdmix_tpu_partition")], max_parallel=3)
+    spans = {}
+    for line in open(log):
+        name, start, end = line.split()
+        spans[name] = (float(start), float(end))
+    (a0, a1), (b0, b1) = spans["train-a"], spans["train-b"]
+    assert a1 <= b0 or b1 <= a0, spans          # trainers never overlap
+    p0, p1 = spans["partition"]
+    assert p0 < min(a1, b1), spans              # data job ran beside one
+    assert time.time() - t0 < 30
+
+
 def test_dag_mode_runs_full_pipeline(tmp_path):
     """`--mode dag` executes the COMPLETE generated commands as subprocesses —
     the file-based pipeline driven purely through the DAG (closes the 'DAG is
